@@ -4,8 +4,8 @@ AA-aligned chunks.
 The reference bounds RAM by streaming the k-mer files through a fixed
 buffer during the merge-join (`/root/reference/src/commons/KmerMatcher.cpp:212-265`)
 and splitting queries to fit ``--max-ram``
-(`/root/reference/src/commons/QueryIndexer.cpp:30-147`). The TPU analogue:
-when the decompressed table exceeds the HBM budget, it is split into
+(`QueryIndexer.cpp:30-147`). The device analogue:
+when the decompressed table exceeds the device budget, it is split into
 AA-aligned chunks; each read batch runs against every chunk and the per-
 chunk match tensors are merged (each AA group lives in exactly one chunk, so
 cutoffs need no cross-chunk reduction — same invariant as mesh sharding).

@@ -48,6 +48,44 @@ def _bucket_len(length: int) -> int:
     return ((length + step - 1) // step) * step
 
 
+CPU_MEMORY_BYTES = 4 << 30  # the CPU backend reports no limit: stay modest
+
+
+def device_memory_bytes(dev) -> int:
+    """Bytes a batch may plan against on ``dev``: the allocator's
+    ``bytes_limit`` where the device reports ``memory_stats`` (GPUs do),
+    a modest fixed figure on the CPU backend, and an error elsewhere."""
+    stats = dev.memory_stats() or {}
+    if stats.get("bytes_limit"):
+        return int(stats["bytes_limit"])
+    if dev.platform == "cpu":
+        return CPU_MEMORY_BYTES
+    raise RuntimeError(
+        f"device {dev.device_kind!r} (platform {dev.platform}) reports no "
+        "memory limit; set --batch-reads explicitly")
+
+
+def auto_batch_reads(dev, index_rows: int, fused: bool) -> int:
+    """Reads per batch from device memory — the device analogue of the
+    reference's byte-budget planning (`QueryIndexer.cpp:24-28`,
+    availableRam / (bytesPerKmer*kmerCnt + 200/read)).
+
+    The per-read footprint covers the match tensors plus (for the fused
+    taxonomer) the chain grids; half of what the index leaves free is
+    planned for."""
+    from .chunked import BYTES_PER_ENTRY
+
+    limit = device_memory_bytes(dev)
+    avail = max(limit - index_rows * BYTES_PER_ENTRY - (1 << 30), 1 << 28)
+    # footprints at L=160: ~300 KB/read fused (chain grids dominate),
+    # ~120 KB/read match-only
+    per_read = 300_000 if fused else 120_000
+    b = 512
+    while b * 2 * per_read <= avail // 2 and b < 16384:
+        b *= 2
+    return b
+
+
 @dataclass
 class QueryMeta:
     name: str
@@ -114,8 +152,8 @@ class Classifier:
         self.reporter = Reporter(self.taxonomy, bool(params.print_lineage))
 
         # device arrays (32-bit split representation + prefix buckets);
-        # DBs larger than the HBM budget stream through in AA-aligned chunks
-        # (the --max-ram analogue, see classify/chunked.py)
+        # DBs larger than the device budget stream through in AA-aligned
+        # chunks (the --max-ram analogue, see classify/chunked.py)
         from .chunked import BYTES_PER_ENTRY, ChunkedIndex
         from .pipeline import build_dev_index
 
@@ -175,7 +213,12 @@ class Classifier:
         # index aligned deep groups (DevIndex.deep_w)
         self._ovd_rows: int | None = None
         self._ovd_budget_used = 0
-        self.stats = {"matches": 0, "kmers": 0, "reads": 0, "device_s": 0.0, "tax_s": 0.0}
+        # retries = device relaunches after a cap/budget/grid overflow;
+        # fused_batches = batches run by the fused device taxonomer, of
+        # which host_fallbacks were redone through the host taxonomer
+        self.stats = {"matches": 0, "kmers": 0, "reads": 0, "device_s": 0.0,
+                      "tax_s": 0.0, "retries": 0, "fused_batches": 0,
+                      "host_fallbacks": 0}
         # sticky fused-taxonomer grid escalation (applies to later batches)
         self._fused_pmax = 16
         self._fused_scale = 1
@@ -183,35 +226,9 @@ class Classifier:
         self._obs_ratio: float | None = None
 
     def _auto_batch_reads(self) -> int:
-        """Derive reads-per-batch from device memory — the HBM analogue of
-        the reference's byte-budget planning (`QueryIndexer.cpp:24-28`,
-        availableRam / (bytesPerKmer*kmerCnt + 200/read)).
-
-        Uses live ``memory_stats`` when the platform reports them,
-        otherwise a device-kind HBM table. The per-read footprint covers
-        the match tensors plus (for the fused taxonomer) the chain grids."""
-        from .chunked import BYTES_PER_ENTRY
-
-        dev = jax.devices()[0]
-        stats = getattr(dev, "memory_stats", lambda: None)() or {}
-        hbm = stats.get("bytes_limit")
-        if not hbm:
-            kind = getattr(dev, "device_kind", "").lower()
-            if "v5p" in kind or "v4" in kind:
-                hbm = 90 << 30
-            elif "tpu" in kind:
-                hbm = 15 << 30  # v5e / v5 lite / v6e-class floor
-            else:
-                hbm = 4 << 30  # CPU & unknown platforms: stay modest
-        index_bytes = len(self.index.values) * BYTES_PER_ENTRY
-        avail = max(hbm - index_bytes - (1 << 30), 1 << 28)
-        # measured footprints at L=160: ~300 KB/read fused (chain grids
-        # dominate), ~120 KB/read match-only
-        per_read = 300_000 if self.device_taxonomer is not None else 120_000
-        b = 512
-        while b * 2 * per_read <= avail // 2 and b < 16384:
-            b *= 2
-        return b
+        return auto_batch_reads(
+            jax.config.jax_default_device or jax.devices()[0],
+            len(self.index.values), self.device_taxonomer is not None)
 
     # ---------------------------------------------------------------- batches
     def _iter_batches(self, q1: str, q2: str | None, skip: int = 0):
@@ -284,7 +301,7 @@ class Classifier:
         if self.chunked_index is not None:
             return ("chunked", args, None, budget)  # runs at drain time
         if self.device_taxonomer is not None and self.device_taxonomer.hints:
-            # fused classify+taxonomer program: matches never leave HBM.
+            # fused classify+taxonomer program: matches stay on the device.
             # (The FIRST batch runs through the plain path instead: its host
             # match dict seeds the fused grid sizes — see set_hints — so the
             # fused program compiles right-sized rather than worst-case.)
@@ -410,6 +427,7 @@ class Classifier:
                 scale = 4
             else:
                 break
+            self.stats["retries"] += 1
             handle = self._launch_fused(
                 args, self.cap, budget, n_reads, max_read_len, read_lens,
                 p_max=p_max, scale=scale,
@@ -450,6 +468,7 @@ class Classifier:
                 budget = int(n_matches * 1.2) + 1024
             else:
                 break
+            self.stats["retries"] += 1
             bm = self._launch(args, self.cap, budget)
             prefetch_counts(bm)
         fetch = start_fetch(bm)
@@ -505,6 +524,7 @@ class Classifier:
                 budget = int(m["n_matches"] * 1.2) + 1024
             else:
                 break
+            self.stats["retries"] += 1
             if self.chunked_index is not None:
                 from .chunked import classify_batch_chunked
 
@@ -692,11 +712,13 @@ class Classifier:
                         results = self._assign_batch(metas, m,
                                                      force_host=True)
                     elif dev_ctx[0] == "fused":
+                        self.stats["fused_batches"] += 1
                         results, fallback = self._drain_fused(dev_ctx)
                         if results is None:
                             # taxonomer grid overflow: host fallback through
                             # the match path (rare; pathological density)
                             f_args, f_budget = fallback
+                            self.stats["host_fallbacks"] += 1
                             t0 = time.time()
                             bm = self._launch(f_args, self.cap, f_budget)
                             m = matches_to_host(bm, self._species_np)

@@ -16,11 +16,11 @@ Re-expresses the reference's per-read chain DP (`getMatchPaths`,
     depth >= minConsCnt, and emit the final group unconditionally
     (depth-gated).
 
-TPU layout note: every hot tensor keeps the BLOCK axis minor ([k, NB], grids
+Layout note: every hot tensor keeps the BLOCK axis minor ([k, NB], grids
 [w, k, NB]) and the tiny slot axis k is unrolled into Python loops of
-[NB]-wide ops. TPU tiles the last two dims to (8, 128); a minor dim of
-k=4 would be lane-padded 32x (measured: the [NB, w, k] layout ran the scan
-at ~10ms/step vs sub-ms for [*, NB]).
+[NB]-wide ops, so each scan step works on long contiguous vectors rather
+than a k=4-wide minor dimension (ROADMAP Design 3 re-decides it on GPU
+measurements).
 
 Blocks exceeding the column/slot capacity are flagged for host fallback.
 """
@@ -156,15 +156,16 @@ def chain_matches(
             :, :, :n_blocks
         ]
 
-    # Grid scatters are the dominant cost of this stage (~10ns/element on
-    # TPU), so the per-row payload is packed into TWO i32 scatters:
+    # Grid scatters are this stage's main cost, so the per-row payload is
+    # packed into TWO i32 scatters:
     #   g1 = dna24 << 1 | occ
     #   g2 = h16 << 8 | hammingSum << 2 | pos%3
     # pos itself is reconstructed inside the scan as 3*(q0_block + column)
     # + rem (the column IS the position quotient relative to the block
-    # head). NB: packing all payloads into one u64 scatter was MEASURED
-    # SLOWER end to end (11.5k vs 17.3k reads/s on the dev chip) — u64
-    # scatters lower worse than i32 ones; two i32 scatters is the floor.
+    # head). Rows outside the grid (b_i = n_blocks) all land in the
+    # padding block that is sliced off, so the unordered scatter of
+    # repeated indices never reaches a kept cell; every kept
+    # (column, slot, block) cell is written by exactly one row.
     g1 = grid((dna << 1) | 1, 0, jnp.int32)
     g2 = grid((h16 << 8) | ((hamming & 63) << 2) | (pos % 3), 0, jnp.int32)
 

@@ -9,10 +9,10 @@ per-codon hammings (`trimMatchPath`, `:475-485`). The final species score
 is min(1, sum of accepted scores / read length)
 (`getBestSpeciesMatches`, `:354-356`).
 
-Shapes: [P, G] path grids (G = (read, species) groups kept minor for TPU
-lanes, P = path capacity;
-groups with more paths are flagged for host fallback). The inner greedy is
-two static fori loops (P^2 tiny steps, vectorized over groups).
+Shapes: [P, G] path grids (G = (read, species) groups kept minor,
+P = path capacity; groups with more paths are flagged for host fallback).
+The inner greedy is two static fori loops (P^2 tiny steps, vectorized over
+groups).
 """
 
 from __future__ import annotations
@@ -92,8 +92,8 @@ def combine_paths(
     # group = (read, species) run. Paths are SORTED, so each group's rows
     # are one contiguous run: the [P, G] grids are windowed GATHERS from
     # the flat arrays at the per-group run start (one scatter-min builds
-    # the run-start table) — far cheaper on TPU than scattering every
-    # path row into the grids.
+    # the run-start table) instead of scattering every path row into the
+    # grids.
     M = s_read.shape[0]
     idx = jnp.arange(M, dtype=jnp.int32)
     new_g = jnp.ones(M, bool)
@@ -121,11 +121,11 @@ def combine_paths(
     occ = win < gend[None, :]                           # [P, G]
     win_c = jnp.minimum(win, M - 1)
 
-    # ONE row gather instead of six scalar gathers: TPU HBM gathers are
-    # descriptor-bound, and a [M, 8]-table row fetch brings all six path
-    # fields per descriptor at near-bandwidth (same effect as the
-    # deep-group aligned tier, pipeline.py) — the scalar formulation paid
-    # ~6x the descriptors for the same [P, G] grids.
+    # ONE row gather instead of six scalar gathers: a [M, 8]-table row
+    # fetch brings all six path fields at once (same idea as the
+    # deep-group aligned tier, pipeline.py). Scores are sums of multiples
+    # of 0.5 accumulated in a fixed loop order, so they are exact in
+    # float32 on every backend.
     tab = jnp.stack(
         (s_start, s_end,
          jax.lax.bitcast_convert_type(s_score, jnp.int32),
@@ -231,8 +231,14 @@ def combine_paths(
 
     st = jax.lax.fori_loop(0, p_max, outer, st0)
     rl = read_lens[jnp.clip(group_read, 0, read_lens.shape[0] - 1)]
+    # total / read length, correctly rounded to float32 like the host
+    # taxonomers' f32 division: XLA:GPU's f32 divide is not correctly
+    # rounded (it was 1 ulp low on a golden read), while an f64 divide
+    # rounded to f32 is exact for f32 operands (53 >= 2*24 + 2 bits)
     score = jnp.minimum(
-        st.total / jnp.maximum(rl, 1).astype(jnp.float32), 1.0
+        (st.total.astype(jnp.float64)
+         / jnp.maximum(rl, 1).astype(jnp.float64)).astype(jnp.float32),
+        1.0,
     )
     score = jnp.where(group_valid, score, 0.0)
 

@@ -35,13 +35,13 @@ class FlatPaths(NamedTuple):
 @functools.partial(jax.jit, static_argnames=("budget",))
 def compact_paths(chain_result, *, budget: int) -> FlatPaths:
     res = chain_result
-    em = res.emit_mask  # [W1, K, NB] (block axis minor: TPU lane-friendly)
+    em = res.emit_mask  # [W1, K, NB] (block axis minor, see device_chain)
     w1, k, nb = em.shape
     flat = em.reshape(-1)
     n_paths = jnp.sum(flat.astype(jnp.int32))
     # partition sort: (emitted ? slot : MAX) moves emitted slots to the
     # front in slot order — byte-identical to a stable scatter compaction
-    # and cheaper on TPU (see pipeline._classify_core)
+    # (same pattern as pipeline._classify_core)
     slot = jnp.arange(w1 * nb * k, dtype=jnp.int32)
     rows = jax.lax.sort(jnp.where(flat, slot, INT32_MAX))
     if rows.shape[0] < budget:  # budget may exceed the grid capacity

@@ -54,8 +54,8 @@ def device_taxonomy(tax) -> DeviceTaxonomy:
 
 def seg_broadcast(flag, val):
     """Propagate ``val`` forward from flagged rows through each run
-    (segmented broadcast as an associative scan — scans are VPU-cheap on
-    TPU where per-element scatters/gathers cost ~10ns each)."""
+    (segmented broadcast as an associative scan instead of per-element
+    scatters/gathers)."""
     def op(a, b):
         af, av = a
         bf, bv = b

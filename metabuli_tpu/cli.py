@@ -774,7 +774,7 @@ COMMANDS = {
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print(f"metabuli_tpu {__version__} — TPU-native metagenomic classifier")
+        print(f"metabuli_tpu {__version__} — metagenomic classifier in JAX")
         print("\nCommands:")
         for name, (_, help_text) in COMMANDS.items():
             print(f"  {name:18s} {help_text}")

@@ -182,7 +182,7 @@ class IndexBuilder:
         # the PADDED matrix [b_pad, bucket] where bucket is the batch MAX
         # length — mixing one long sequence into thousands of short gene
         # blocks multiplies EVERY row's cost, so the cut must account the
-        # true padded product, not a per-task sum (the HBM analogue of the
+        # true padded product, not a per-task sum (the device analogue of the
         # reference's buffer reserve/un-reserve retry,
         # `/root/reference/src/commons/IndexCreator.cpp:1237-1241`).
         batch: list[SeqTask] = []

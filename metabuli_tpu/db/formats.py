@@ -17,7 +17,7 @@ Metabuli databases are a directory of flat files
                  (`/root/reference/src/commons/common.cpp:88-133`).
 
 The codec here is numpy-vectorized (no per-element Python); the delta format
-is retained as the *interchange* format only — in memory / HBM the table is
+is retained as the *interchange* format only — in host and device memory the table is
 kept decompressed for binary search.
 """
 

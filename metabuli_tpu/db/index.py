@@ -1,7 +1,7 @@
 """Device-resident metamer index.
 
 Loads a Metabuli-format database directory into decompressed arrays sized
-for HBM residency:
+for device residency:
 
   values  [N] uint64 sorted metamers
   taxids  [N] uint32 internal taxids (redundancy bit cleared on load,

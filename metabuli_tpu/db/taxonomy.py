@@ -12,7 +12,7 @@ MMseqs2 ``NcbiTaxonomy`` (`/root/reference/src/commons/TaxonomyWrapper.{h,cpp}`)
   * binary round-trip (npz) and ``*.dmp`` re-export (the ``taxdump``
     command, `/root/reference/src/util/taxdump.cpp`).
 
-Design notes (TPU-first): LCA uses an Euler tour + sparse-table RMQ, built
+Design notes: LCA uses an Euler tour + sparse-table RMQ, built
 once in numpy, so batched LCA over match arrays is fully vectorized; the
 per-node species/genus ancestors are precomputed top-down so classification
 never walks the tree at query time.

@@ -107,10 +107,9 @@ def extract_metamers(
 
     codon_idx = jnp.arange(A, dtype=jnp.int32)  # [A]
 
-    # HBM-gather-lean frame extraction. The per-frame per-codon base
-    # gathers were the whole device cost of this stage on TPU (18 dynamic
-    # gathers + 12 table lookups per batch), so everything funnels through
-    # ONE table lookup on packed base triples:
+    # Gather-lean frame extraction: instead of per-frame per-codon base
+    # gathers (18 dynamic gathers + 12 table lookups per batch),
+    # everything funnels through ONE table lookup on packed base triples:
     #   trip[b, p]  = bases (p, p+1, p+2) packed to 6 bits (64 = invalid),
     #                 built from three STATIC shifted slices — no gather;
     #   combo[t]    = c6 | aa<<6 | num<<11 for the forward codon (bits
@@ -134,8 +133,8 @@ def extract_metamers(
         (ci32[:, : L - 2] < 4) & (ci32[:, 1 : L - 1] < 4) & (ci32[:, 2:] < 4)
     )
     # 64-way constant lookup as a binary select tree (6 rounds of where):
-    # a per-element HBM gather costs ~10ns on TPU; the select tree is pure
-    # fused VPU work over the [B, L-2] triple matrix
+    # fused elementwise work over the [B, L-2] triple matrix instead of a
+    # per-element gather
     trip_c = jnp.where(trip_ok, trip, 0)
     lvl = [jnp.int32(int(v)) for v in combo_np[:64]]
     for bit in range(6):
@@ -155,12 +154,12 @@ def extract_metamers(
     # Reverse frames are enumerated in ASCENDING genome order (codon k of
     # frame f>=3 sits at triple start begin + 3k), NOT the reference's
     # descending seqEnd-down order: the k-th codon then comes from a STATIC
-    # stride-3 slice of zr selected by begin (three slices + two VPU
-    # selects), replacing a [B, A] take_along_axis gather per frame — the
-    # gathers were ~26 ms of the traced 16k-read batch. Window w' of the
-    # ascending enumeration is window (aa_len - 8 - w') of the reference's
-    # (its VALUE packs codons k = w'+7 .. w' — see the packing loop below —
-    # and its position is begin + 3w'), so the frame emits exactly the
+    # stride-3 slice of zr selected by begin (three slices + two
+    # elementwise selects), replacing a [B, A] take_along_axis gather per
+    # frame. Window w' of the ascending enumeration is window
+    # (aa_len - 8 - w') of the reference's (its VALUE packs codons
+    # k = w'+7 .. w' — see the packing loop below — and its position is
+    # begin + 3w'), so the frame emits exactly the
     # reference's (value, pos) multiset; only intra-frame enumeration order
     # differs, which the final (qid, species, frame, pos, ...) match sort
     # erases (`KmerExtractor.cpp:342-373` semantics preserved).

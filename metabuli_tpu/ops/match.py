@@ -1,8 +1,8 @@
 """Sorted-table metamer matching: binary search + capped gather.
 
-TPU-native replacement for the reference's sequential merge-join over the
+Data-parallel replacement for the reference's sequential merge-join over the
 delta-compressed k-mer stream (`/root/reference/src/commons/KmerMatcher.cpp:123-481`).
-The database lives in HBM as a *decompressed* sorted ``uint64`` metamer array
+The database lives in device memory as a *decompressed* sorted ``uint64`` metamer array
 plus a parallel taxid array; for every query metamer we:
 
   1. binary-search the range of database entries whose 40-bit amino-acid part

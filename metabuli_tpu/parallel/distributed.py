@@ -1,11 +1,11 @@
-"""Multi-host execution (jax.distributed) for pod-scale classification.
+"""Multi-host execution (jax.distributed) for multi-device classification.
 
 The reference is single-node (`SURVEY.md` §2.8); this provides the
-TPU-native scale-out path: every host joins a `jax.distributed` runtime,
-the global (data, db) mesh spans all hosts' devices, each host feeds its
-own slice of the read stream (data axis) and holds its assigned AA-range
-chunks of the metamer table (db axis). Collectives ride ICI within a slice;
-DCN only carries host-level read distribution and result gathering.
+scale-out path: every host joins a `jax.distributed` runtime, the global
+(data, db) mesh spans all hosts' devices, each host feeds its own slice of
+the read stream (data axis) and holds its assigned AA-range chunks of the
+metamer table (db axis). Collectives run between the devices; the hosts
+only carry read distribution and result gathering.
 
 Usage (per host):
 

@@ -1,6 +1,6 @@
-"""Multi-chip scaling: index sharding over a device mesh.
+"""Multi-device scaling: index sharding over a device mesh.
 
-TPU-native replacement for the reference's single-node OpenMP parallelism
+Device-mesh replacement for the reference's single-node OpenMP parallelism
 (`SURVEY.md` §2.8): a 2-D ``jax.sharding.Mesh`` with axes
 
   data -- read batches sharded across devices (data parallelism),
@@ -156,7 +156,7 @@ def build_sharded_classify(
             smer_len=smer_len, kmer_format=kmer_format,
             prefix_bits=pb,
         )
-        # replicate matches across the db axis (ICI all_gather): every
+        # replicate matches across the db axis (all_gather): every
         # device in a data row then holds the row's COMPLETE matches, so
         # the host drain works for any process<->mesh topology (a data
         # row's db shards need not share a process) and no host-level
@@ -241,7 +241,7 @@ def build_sharded_fused(
     route="alltoall" (default): READS are range-partitioned across the db
     axis for the tail. Each shard's matches are already qid-sorted, so
     the per-destination segments are contiguous — n_db static dynamic
-    slices of ``a2a_budget`` rows each feed ONE all_to_all over ICI, each
+    slices of ``a2a_budget`` rows each feed ONE all_to_all, each
     rank merge-sorts only its subset's n_db * a2a_budget rows and runs
     the tail on |reads|/n_db reads. vs all_gather this moves each match
     byte once instead of n_db times and cuts the merge sort + tail work

@@ -79,7 +79,7 @@ class ClassifyParams:
     # MMseqs2-style verbosity (LocalParameters.cpp:1098): 0 = errors only
     # (suppresses the summary/progress lines), 3 = full output (default)
     verbosity: int = 3
-    # TPU-specific execution knobs
+    # device execution knobs
     batch_reads: int = field(
         default=2048,
         metadata={"help": "reads per device batch (0 = derive from device "
@@ -117,7 +117,7 @@ class BuildParams:
     tinfo_path: str = ""
     # MMseqs2-style verbosity (see ClassifyParams.verbosity)
     verbosity: int = 3
-    # TPU-specific
+    # device execution knobs
     batch_bases: int = field(
         default=2_000_000, metadata={"help": "bases per device extraction batch"}
     )

@@ -6,7 +6,7 @@ workflow): reads sharing enough k-mers are joined in a union-find
 (`GroupGenerator.h:73-109`); classification labels then propagate from
 classified members to unclassified members of each group.
 
-TPU-first shape: metamer extraction runs on device; the overlap join is a
+Shape: metamer extraction runs on device; the overlap join is a
 sort of (kmer, read) pairs; union-find and label propagation are host-side
 (numpy + path compression).
 """

@@ -2,7 +2,7 @@
 
 Groups deeper than DEEP_T are padded/aligned at index build
 (`DevIndex.deep_w`) so the deep tier fetches a query's whole candidate
-window with ONE row descriptor. Match output must be identical to the
+window with ONE row fetch. Match output must be identical to the
 scattered cap2 gather (`ovd_budget=0` disables the deep tier on the same
 padded index), and padding must be invisible to the classic bucketed
 flow too.

@@ -106,7 +106,7 @@ def test_device_chain_matches_python(tmp_path, seed, max_shift):
     scores = np.asarray(res.score); hams = np.asarray(res.hamming)
     depths = np.asarray(res.depth)
     b_read = np.asarray(res.block_read); b_sp = np.asarray(res.block_species)
-    # emission grids are [W+1, K, NB] (block axis minor for TPU lanes)
+    # emission grids are [W+1, K, NB] (block axis minor)
     for (w_i, s, b) in zip(*np.nonzero(em)):
         got.append((int(b_read[b]), int(b_sp[b]), int(starts[w_i, s, b]),
                     int(ends[w_i, s, b]), round(float(scores[w_i, s, b]), 3),

@@ -140,29 +140,15 @@ def test_reduced_aa_part_is_high_32_bits():
 def test_jit_matches_eager_bench_shapes():
     """jit-vs-eager gate at production shapes.
 
-    This XLA build MISCOMPILES certain slice/concat patterns (round 5:
-    mirrored per-step window slices packed under an unrolled loop came out
-    of jit with the codon order un-reversed while op-by-op eager was
-    correct — silently halving bench classification). The bug is
-    shape-dependent, so this gates extract_metamers' compiled output
+    An XLA build once MISCOMPILED a slice/concat pattern here: mirrored
+    per-step window slices packed under an unrolled loop came out of jit
+    with the codon order un-reversed while op-by-op eager was correct —
+    silently halving classification. The fault is shape-dependent, so
+    ``jit_eager_mismatches`` gates extract_metamers' compiled output
     against its eager output at the shapes the byte-parity suites do NOT
     cover (150bp reads in 152-wide buckets, 16-read batches, plus the
-    36bp minimal-repro shape)."""
-    import jax
-    import jax.numpy as jnp
+    36bp minimal-repro shape). ``chip_smoke.py`` runs the same gate on a
+    GPU."""
+    from metabuli_tpu.checks import jit_eager_mismatches
 
-    for length, pad, n in ((150, 152, 16), (36, 36, 4), (150, 150, 8)):
-        rng = np.random.default_rng(9 + length + pad)
-        seqs = [ref_impl.random_dna(rng, length, n_prob=0.02)
-                for _ in range(n)]
-        codes, lens = encode_seqs_padded(seqs, pad)
-        got = encode.extract_metamers(codes, lens)
-        want = encode.extract_metamers.__wrapped__(
-            jnp.asarray(codes), jnp.asarray(lens))
-        assert bool(jnp.all(got.valid == want.valid)), (length, pad)
-        v_ok = jnp.where(got.valid, got.value, 0) == jnp.where(
-            want.valid, want.value, 0)
-        assert bool(jnp.all(v_ok)), (length, pad)
-        assert bool(jnp.all(
-            jnp.where(got.valid, got.pos, 0)
-            == jnp.where(want.valid, want.pos, 0))), (length, pad)
+    assert jit_eager_mismatches() == []

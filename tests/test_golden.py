@@ -8,76 +8,15 @@ Regenerate fixtures intentionally with:
 and review the diff before committing.
 """
 
-import hashlib
 import os
 import pathlib
 
-import numpy as np
 import pytest
 
-from metabuli_tpu.classify.classifier import Classifier
-from metabuli_tpu.db.build import build_database
-from metabuli_tpu.params import BuildParams, ClassifyParams
+from metabuli_tpu.checks import golden_outputs
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 REGEN = bool(os.environ.get("REGEN_GOLDEN"))
-
-
-def _world(tmp_path):
-    rng = np.random.default_rng(20260817)
-    genomes = {
-        "GLD_A.1": (bytes(rng.choice(np.array(list(b"ACGT"), np.uint8), 6000)), 4),
-        "GLD_B.1": (bytes(rng.choice(np.array(list(b"ACGT"), np.uint8), 6000)), 5),
-        "GLD_C.1": (bytes(rng.choice(np.array(list(b"ACGT"), np.uint8), 6000)), 8),
-    }
-    nodes = [
-        (1, 1, "no rank"), (2, 1, "superkingdom"), (3, 2, "genus"),
-        (4, 3, "species"), (5, 3, "species"), (6, 4, "subspecies"),
-        (7, 2, "genus"), (8, 7, "species"),
-    ]
-    names = {1: "root", 2: "Bacteria", 3: "GenusA", 4: "SpA1", 5: "SpA2",
-             6: "SpA1sub", 7: "GenusB", 8: "SpB1"}
-    taxdir = tmp_path / "taxonomy"
-    taxdir.mkdir()
-    (taxdir / "nodes.dmp").write_text(
-        "".join(f"{t}\t|\t{p}\t|\t{r}\t|\n" for t, p, r in nodes))
-    (taxdir / "names.dmp").write_text(
-        "".join(f"{t}\t|\t{n}\t|\t\t|\tscientific name\t|\n" for t, n in names.items()))
-    (taxdir / "merged.dmp").write_text("")
-    fdir = tmp_path / "fasta"
-    fdir.mkdir()
-    paths = []
-    for acc, (seq, _) in genomes.items():
-        p = fdir / f"{acc}.fna"
-        p.write_text(f">{acc}\n{seq.decode()}\n")
-        paths.append(str(p))
-    (tmp_path / "library.txt").write_text("\n".join(paths) + "\n")
-    (tmp_path / "acc2taxid.map").write_text(
-        "accession\taccession.version\ttaxid\tgi\n"
-        + "".join(f"{a.split('.')[0]}\t{a}\t{t}\t0\n"
-                  for a, (_, t) in genomes.items())
-    )
-    # canned reads: clean, mutated, reverse-complemented, noisy, N-containing
-    reads = []
-    for gi, (acc, (g, _)) in enumerate(genomes.items()):
-        for i in range(6):
-            start = 137 * (i + 1) + 311 * gi
-            read = bytearray(g[start : start + 150])
-            if i % 3 == 1:
-                read[40] = ord("A") if read[40] != ord("A") else ord("C")
-                read[90] = ord("G") if read[90] != ord("G") else ord("T")
-            if i % 2 == 1:
-                read = bytearray(
-                    bytes(read).translate(bytes.maketrans(b"ACGT", b"TGCA"))[::-1]
-                )
-            if i == 5:
-                read[70:75] = b"NNNNN"
-            reads.append(bytes(read))
-    noise = np.random.default_rng(7).choice(np.array(list(b"ACGT"), np.uint8), (3, 150))
-    reads += [bytes(r) for r in noise]
-    q = tmp_path / "reads.fna"
-    q.write_text("".join(f">g{i}\n{r.decode()}\n" for i, r in enumerate(reads)))
-    return str(tmp_path), str(q)
 
 
 def _fixture_compare(name: str, produced: str):
@@ -92,29 +31,7 @@ def _fixture_compare(name: str, produced: str):
 
 @pytest.mark.parametrize("syncmer", [0, 1])
 def test_golden_classify(tmp_path, syncmer):
-    root, q = _world(tmp_path)
-    db = os.path.join(root, f"db_s{syncmer}")
-    stats = build_database(
-        db, os.path.join(root, "library.txt"),
-        os.path.join(root, "acc2taxid.map"),
-        os.path.join(root, "taxonomy"),
-        BuildParams(gene_prediction=0, syncmer=syncmer, mask_mode=1),
-    )
-    tag = f"s{syncmer}"
-    _fixture_compare(
-        f"build_stats_{tag}.txt",
-        f"total={stats['total_kmers']} unique={stats['unique_kmers']}\n",
-    )
-    # diffIdx/info content locked via digest (binary fixtures stay small)
-    digest = hashlib.sha256()
-    for fname in ("diffIdx", "info", "taxID_list"):
-        digest.update(open(os.path.join(db, fname), "rb").read())
-    _fixture_compare(f"db_digest_{tag}.txt", digest.hexdigest() + "\n")
-
-    out = os.path.join(root, f"out_{tag}")
-    clf = Classifier(db, ClassifyParams(seq_mode=1, batch_reads=8))
-    clf.classify_file(q, None, out, "gold")
-    cls = open(os.path.join(out, "gold_classifications.tsv")).read()
-    rep = open(os.path.join(out, "gold_report.tsv")).read()
-    _fixture_compare(f"classifications_{tag}.tsv", cls)
-    _fixture_compare(f"report_{tag}.tsv", rep)
+    # the world itself lives in metabuli_tpu.checks, shared with
+    # chip_smoke.py, which compares the same files on a GPU
+    for name, produced in golden_outputs(tmp_path, syncmer).items():
+        _fixture_compare(name, produced)

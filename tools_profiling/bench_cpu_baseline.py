@@ -1,7 +1,7 @@
 """Measure the COMPILED REFERENCE classifier's throughput on the bench world.
 
-VERDICT r4 asked for a *measured* `vs_baseline` divisor instead of the
-assumed 20k reads/s: this script writes the exact bench DB of a bench.py
+Gives bench.py a *measured* `vs_baseline` divisor: this script writes
+the exact bench DB of a bench.py
 configuration (default: the PRIMARY adversarial "skew" world, 60M rows)
 in reference on-disk format (diffIdx/info/split via the
 byte-parity-tested writers in db/formats.py), samples the exact bench
@@ -14,14 +14,13 @@ on a small prefix — and reports the marginal rate
 (T_full - T_small) / (N_full - N_small), which cancels the constant
 DB-load + startup cost.
 
-BASELINE.json's target unit is one CPU *socket*; this host has 2 vCPUs,
-so the best per-core rate is scaled to a nominal 32-core socket assuming
-PERFECT linear scaling — optimistic for the reference (its merge join is
-memory-bound and sublinear in practice), i.e. conservative for
-vs_baseline.
+The per-core rate is also scaled to a nominal 32-core socket assuming
+PERFECT linear scaling (context only; bench.py divides by the measured
+all-cores rate). Needs the reference source tree that
+tests/helpers/ref_oracle.py compiles.
 
-Writes BASELINE_MEASURED.json at the repo root; bench.py picks it up for
-`vs_baseline` when present.
+Writes BASELINE_MEASURED.json at the repo root, which bench.py reads for
+`vs_baseline`.
 """
 
 import json
@@ -108,10 +107,11 @@ def main():
     binary = ref_oracle.build("classify_oracle")
     # persistent workdir: the 60M-row reference DB write costs ~1 min and
     # is bit-deterministic; reruns skip it
-    tmp = f"/tmp/metabuli_baseline_{CONFIG}_v{bench.BENCH_DB_VERSION}"
+    tmp = os.path.join(bench.BENCH_CACHE,
+                       f"baseline_{CONFIG}_v{bench.BENCH_DB_VERSION}")
     os.makedirs(tmp, exist_ok=True)
     tax, genomes, values, taxids, cap, n_real, reads = bench.prepare_world(
-        CONFIG)
+        CONFIG, bench.BENCH_CACHE)
     if os.path.exists(os.path.join(tmp, "refdb", "diffIdx")):
         db = os.path.join(tmp, "refdb")
     else:
